@@ -1,7 +1,7 @@
 """Real FEM matrix: P1 stiffness assembly on an unstructured Delaunay mesh.
 
 The reference's benchmark inputs are real SuiteSparse matrices
-(``/root/reference/README.md:21``, exemplar ``test/cop20k_A.mtx`` — a 3D
+(the reference's ``README.md:21``, exemplar ``test/cop20k_A.mtx`` — a 3D
 accelerator-cavity FEM).  This environment has no network access, so the
 suite's "real FEM" arm is RECONSTRUCTED deterministically: a genuine
 Galerkin P1 stiffness matrix of the Poisson problem on an unstructured
@@ -9,9 +9,9 @@ Delaunay tetrahedralization of seeded random points.  Unlike the
 ``fem_like`` synthetic (random columns in a band), this matrix has the
 true structural signature of FEM discretizations — mesh-neighbor
 sparsity, symmetric pattern, variable row degree from the mesh's vertex
-valences — which is exactly the window-locality structure the packer is
-tuned to (bench.py records its census next to the archetypes so the
-generators can be validated against it; see docs/DESIGN.md).
+valences — and an arbitrary vertex numbering, so its column locality is
+the worst case where the banded cop20k_like archetype is the best (see
+docs/DESIGN.md).
 
 Deterministic: same seed + size -> identical matrix.  The assembled CSR
 is cached under data/ (npz) because Delaunay on ~10^5 points costs tens

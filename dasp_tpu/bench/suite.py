@@ -111,8 +111,8 @@ def _rmat(key: str, rng: np.random.Generator,
     R-MAT recursion (Chakrabarti et al., SDM'04 — the generator behind
     Graph500) produces exactly that structure: each edge picks a quadrant
     per bit level with probabilities (a, b, c, d), so both endpoints'
-    high bits correlate.  This arm validates the window router and the
-    relabel=auto gate on clustered structure (VERDICT r3 missing item 2).
+    high bits correlate, which is the x-access pattern of a clustered
+    graph.
     """
     n, _, nnz, _ = PUBLISHED[key]
     levels = int(n - 1).bit_length()
@@ -185,8 +185,8 @@ def _calibrated_circuit(rng: np.random.Generator) -> CSRMatrix:
                      rng.standard_normal(nnz))
 
 
-# name -> builder(rng) -> CSRMatrix, calibrated to PUBLISHED sizes (one
-# v5e chip holds all of them).  Graph matrices use degree-rank column
+# name -> generator(rng) -> CSRMatrix, calibrated to PUBLISHED sizes.  Graph
+# matrices use degree-rank column
 # labeling (col_alpha), matching how SNAP/LAW graph dumps are published;
 # `uniform_medium` keeps fully uniform-random columns as the adversarial
 # no-locality case.
@@ -200,12 +200,11 @@ SUITE: Dict[str, Callable] = {
     "wikitalk_like": lambda rng: _calibrated_graph(
         "wiki-Talk", 1.8, 1.6, rng, frac_nonzero=0.1),
     # 48 nnz/row uniform within a 16k-wide band: regular widths but only
-    # partial column locality (stresses the multi-round window path).
+    # partial column locality.
     "uniform_medium": lambda rng: _banded_uniform(131_072, 48, 8192, rng),
     # soc-LiveJournal1 at FULL published scale (config 4's large
-    # long-heavy graph).  Runs LAST in the default sweep (bench.py
-    # orders arms cheapest-first and emits the summary incrementally,
-    # so its pack+compile minutes can no longer lose data).
+    # long-heavy graph).  Runs last in the default sweep (bench.py
+    # orders arms cheapest-first and emits the summary incrementally).
     "livejournal_like": lambda rng: _calibrated_graph(
         "soc-LiveJournal1", 1.9, 1.5, rng),
     # REAL FEM matrix (deterministic P1 Poisson assembly on an
@@ -250,8 +249,8 @@ def build_suite(names: Optional[List[str]] = None, seed: int = 0
                 ) -> List[Tuple[str, CSRMatrix]]:
     """Build (or load from the gitignored ``.suite_cache/``) the named
     arms.  Generating the biggest arm (soc-LiveJournal1 scale, 69M nnz:
-    zipf draw + lexsort) costs minutes of the 1-vCPU box per process;
-    the generators are deterministic, so the .npz round-trip is exact."""
+    zipf draw + lexsort) costs minutes of host time per process; the
+    generators are deterministic, so the .npz round-trip is exact."""
     import os
     names = names or DEFAULT_NAMES
     cd = _cache_dir()

@@ -1,15 +1,16 @@
 """Double-double (float32 x 2) arithmetic for the fp64 SpMV path.
 
-TPUs have no native fp64 MXU/VPU datapath, so the reference's ``spmv_double``
-binary (``main_f64.cu``, ``dasp_f64.h``) maps to an error-free-transformation
-emulation: every fp64 value v is carried as a pair of float32s
-``(hi, lo)`` with ``hi = f32(v)`` and ``lo = f32(v - hi)``, giving ~48 bits of
-effective mantissa — comfortably inside the reference's 1e-5 verification
-tolerance (``main_f64.cu:8``).
+The reference's ``spmv_double`` binary (``main_f64.cu``, ``dasp_f64.h``) maps
+to an error-free-transformation emulation that needs no 64-bit mode in JAX:
+every fp64 value v is carried as a pair of float32s ``(hi, lo)`` with
+``hi = f32(v)`` and ``lo = f32(v - hi)``, giving ~48 bits of effective
+mantissa — comfortably inside the reference's 1e-5 verification tolerance
+(``main_f64.cu:8``).  Replacing it with native f64 is a measured change
+still to come (ROADMAP A3/B2).
 
 Algorithms are the classic Dekker/Knuth error-free transforms (TwoSum, Split,
 TwoProd) specialized to f32 (split constant 2^12+1).  All functions are
-elementwise on jnp arrays and safe inside jit/pallas.
+elementwise on jnp arrays and safe inside jit.
 """
 
 from __future__ import annotations
@@ -37,10 +38,12 @@ def to_f64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
 
 
 def _bar(x):
-    """Block XLA's algebraic simplifier (enabled on this runtime via
-    --xla_allow_excess_precision) from cancelling the error-free-transform
-    residuals.  Mosaic (Pallas) kernels don't run that pass, so the barrier
-    is only needed on the XLA-executed glue reductions."""
+    """Stop XLA from rewriting an error-free transform across this value.
+
+    An algebraic simplification (under ``--xla_allow_excess_precision``) or
+    a contraction of ``a*b +- c`` into one fused multiply-add cancels the
+    residual the transform exists to keep; the ``safe=True`` variants put
+    a barrier at each such point."""
     import jax
     return jax.lax.optimization_barrier(x)
 
@@ -108,8 +111,8 @@ def mul(ah, al, bh, bl, safe: bool = False) -> Pair:
 def sum_axis(h: jnp.ndarray, l: jnp.ndarray, axis: int,
              safe: bool = False) -> Pair:
     """Exact-compensated reduction along ``axis`` via a pairwise tree of
-    dd-adds (log2(n) elementwise passes; n is static).  Pass safe=True when
-    the reduction runs under XLA (not inside a Pallas kernel)."""
+    dd-adds (log2(n) elementwise passes; n is static).  Pass safe=True to
+    fence every transform with ``_bar``."""
     n = h.shape[axis]
     if n == 1:
         return jnp.squeeze(h, axis), jnp.squeeze(l, axis)

@@ -1,9 +1,9 @@
 """XLA executor: runs a DaspPlan's packed structures as fused jnp ops.
 
 This backend expresses every strategy as gather -> multiply -> dense
-reduction, letting XLA fuse each structure into a single HBM pass.  It is the
-portable reference executor; the Pallas backend overrides the hot structures
-with hand-scheduled kernels that stage x in VMEM.
+reduction, letting XLA fuse each structure into a single pass over device
+memory.  It is the one device path: XLA emits the per-element x gathers
+directly, and the same code runs on the CPU (tests) and the GPU.
 
 Structure-to-op mapping (reference parity):
   * ShortStream (stride s)  <-  short1/22/34 kernels ``dasp_f64.h:283-483``:
@@ -118,6 +118,27 @@ def plan_to_scatter_arrays(plan: DaspPlan, dtype: str) -> Tuple[PlanMeta, Dict]:
 # --- value algebra: one executor body covers f32/bf16 and dd-f64 ----------
 
 
+def _pairwise_sum(a, axis: int):
+    """Sum along ``axis`` by a halving tree (zero-padded to a power of two).
+
+    The pairwise order bounds the f32 rounding error by ~eps * log2(n) of
+    the row's absolute mass.  ``jnp.sum`` leaves the order to XLA, which on
+    the GPU was measured at twice the error on long cancelling rows
+    (livejournal_like f32: 4.2e-5 vs 2.1e-5 of max(|y|, 1)), and past the
+    1e-5 golden check on wikitalk_like over four devices."""
+    n = a.shape[axis]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (0, p - n)
+        a = jnp.pad(a, pad)
+    while a.shape[axis] > 1:
+        h = a.shape[axis] // 2
+        a = (jax.lax.slice_in_dim(a, 0, h, axis=axis)
+             + jax.lax.slice_in_dim(a, h, 2 * h, axis=axis))
+    return jnp.squeeze(a, axis)
+
+
 class _Alg:
     """Scalar algebra over a single float array."""
 
@@ -129,11 +150,12 @@ class _Alg:
         return x[cols]
 
     def mul(self, vals, xg):
-        p = vals * xg
-        return p.astype(self.acc) if p.dtype != self.acc else p
+        # in the accumulate dtype: a bf16 x bf16 product is exact in f32,
+        # so the bf16 path's only rounding is the f32 accumulation
+        return vals.astype(self.acc) * xg.astype(self.acc)
 
     def sum(self, prod, axis):
-        return jnp.sum(prod, axis=axis)
+        return _pairwise_sum(prod, axis)
 
     def reshape(self, prod, shape):
         return prod.reshape(shape)
@@ -330,11 +352,12 @@ def _remainder_scatter(alg, meta: PlanMeta, arrays: Dict, x, y_perm):
 
 
 def perturb_x(x, y):
-    """Fold an (numerically negligible) function of y back into x so a
+    """Fold an (numerically negligible) function of y back into x[0] so a
     timing loop's iterations form a true data-dependence chain that XLA
-    cannot hoist or fold (the perturbation is ~1e-36 relative)."""
+    cannot hoist or fold (the perturbation is ~1e-36 relative).  Only one
+    element changes, in place, so the loop adds no pass over x."""
     tap_src = y["hi"] if isinstance(y, dict) else y
     tap = tap_src.ravel()[0].astype(jnp.float32) * jnp.float32(1e-36)
     if isinstance(x, dict):
-        return dict(hi=x["hi"] + tap, lo=x["lo"])
-    return x + tap.astype(x.dtype)
+        return dict(hi=x["hi"].at[0].add(tap), lo=x["lo"])
+    return x.at[0].add(tap.astype(x.dtype))

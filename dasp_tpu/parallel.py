@@ -1,26 +1,18 @@
-"""Multi-chip SpMV: row-slab partitioning over a 1-D device mesh.
+"""Multi-device SpMV: row-strip partitioning over a 1-D device mesh.
 
 This capability is *new* relative to the reference (which is strictly
-single-GPU, SURVEY.md §2): rows are partitioned into block-aligned strips
-dealt to chips nnz-balanced, each chip owns its strips' packed plan, x is
-sharded by rows
-and replicated on-chip via ``jax.lax.all_gather`` over the ICI mesh axis, and
-y needs no communication at all (a row partition makes outputs disjoint).
+single-GPU, SURVEY.md §2): rows are partitioned into nnz-balanced strips
+dealt to devices, each device owns its strips' packed plan, x is sharded
+by rows and replicated on every device via ``jax.lax.all_gather`` over the
+mesh axis, and y needs no communication at all (a row partition makes
+outputs disjoint).
 
-One class, two interchangeable per-chip executors (``backend=``):
-
-* ``"pallas"`` (default): the windowed wplan kernels.  Per-chip plans are
-  rewritten to one canonical shape signature (``wplan.harmonize_wplans``)
-  so ``shard_map`` traces a single program over the stacked plan arrays.
-* ``"xla"``: the portable scatter executor on the legacy tile plan — the
-  tested fallback for platforms where Pallas is unavailable.  Its
-  harmonizer (``_harmonize``) pads per-chip lowered arrays to
-  elementwise-max shapes (padded value tiles are zero => contribute
-  nothing; padded position entries are INT32_MAX => scatter drops them).
-
-Slab partitioning, global column relabel, x preparation and y stitching are
-shared between the backends (round-2 review: the two classes duplicated
-them).  ``WMultiChipSpMV`` remains as a back-compat alias.
+Each device runs the scatter form of the XLA executor
+(``xla_backend.spmv_scatter_fn``).  ``_harmonize`` pads the per-device
+lowered arrays to elementwise-max shapes (padded value tiles are zero and
+contribute nothing; padded position entries are INT32_MAX, which the
+scatter drops) so ``shard_map`` traces one program over the stacked
+arrays.
 """
 
 from __future__ import annotations
@@ -37,8 +29,8 @@ from .config import DaspConfig, DEFAULT_CONFIG
 from .plan import build_plan
 from .sparse import CSRMatrix
 from .ops import dd
-from .ops.xla_backend import (F64, PlanMeta, _SENTINEL, plan_to_scatter_arrays,
-                              spmv_scatter_fn)
+from .ops.xla_backend import (F64, PlanMeta, _SENTINEL, perturb_x,
+                              plan_to_scatter_arrays, spmv_scatter_fn)
 
 
 def partition_rows(csr: CSRMatrix, n_parts: int) -> List[Tuple[int, int]]:
@@ -62,21 +54,18 @@ def partition_strips(csr: CSRMatrix, n_parts: int, align: int,
                      strips_per_part: int = 8
                      ) -> Tuple[List[List[Tuple[int, int]]], List[int]]:
     """Strip-interleaved row partition: ``n_parts * strips_per_part``
-    block-aligned nnz-balanced contiguous strips, dealt to chips by
-    greedy longest-processing-time assignment.
+    nnz-balanced contiguous strips, each a whole multiple of ``align``
+    rows, dealt to devices by greedy longest-processing-time assignment.
 
-    Contiguous slabs of a skewed (power-law) matrix give every chip a
-    structurally DIFFERENT sub-matrix (hub rows cluster), so per-chip
-    packers quantize stream classes/widths differently and
-    ``harmonize_wplans``'s elementwise-max union pads ~2.2-2.6x (measured,
-    docs/DESIGN.md §7b).  Strips sample the whole row space ~uniformly:
-    each chip sees a statistically similar class mix, shrinking both the
-    class-key mismatch and the per-key slice-count spread — and LPT
-    yields a tighter nnz balance than contiguous splitting as a bonus.
+    Contiguous slabs of a skewed (power-law) matrix give every device a
+    structurally DIFFERENT sub-matrix (hub rows cluster), so per-device
+    packers pick different widths and classes and ``_harmonize``'s
+    elementwise-max union pads every device for every other device's
+    shapes.  Strips sample the whole row space ~uniformly: each device
+    sees a statistically similar class mix, and LPT yields a tighter nnz
+    balance than contiguous splitting as a bonus.
 
-    Returns (per-chip sorted strip lists, per-chip nnz loads).  Strips
-    stay whole multiples of ``align`` rows (the pallas outgather needs
-    chip-local 128-row blocks)."""
+    Returns (per-device sorted strip lists, per-device nnz loads)."""
     raw = partition_rows(csr, n_parts * strips_per_part)
     bounds = [0]
     for _, e in raw[:-1]:
@@ -85,13 +74,12 @@ def partition_strips(csr: CSRMatrix, n_parts: int, align: int,
     bounds = sorted(set(bounds))
     ranges = [(bounds[i], bounds[i + 1]) for i in range(len(bounds) - 1)]
     nnz_of = [int(csr.row_ptr[e] - csr.row_ptr[s]) for s, e in ranges]
-    # Two-dimensional balance: long-row mass drives each chip's
-    # long-vreg TAIL, which harmonize_wplans pads to the cross-chip max
-    # — nnz-only LPT left ~17% tail spread on the power-law dryrun
-    # (256 pad vregs on the P=1 class alone).  Balance both dimensions
-    # with a greedy min of the worse normalized load.
+    # Two-dimensional balance: long-row mass sets each device's long
+    # stream, which _harmonize pads to the cross-device max, so balance
+    # both nnz and long-row mass with a greedy min of the worse
+    # normalized load.
     lens = csr.row_lengths.astype(np.int64)
-    LONG_LEN = 1024                       # ~ wplan block_longest scale
+    LONG_LEN = 1024
     lmass = np.where(lens >= LONG_LEN, lens, 0)
     lcum = np.concatenate([[0], np.cumsum(lmass)])
     long_of = [int(lcum[e] - lcum[s]) for s, e in ranges]
@@ -117,7 +105,7 @@ def partition_strips(csr: CSRMatrix, n_parts: int, align: int,
 def strips_csr(csr: CSRMatrix, strips: List[Tuple[int, int]]) -> CSRMatrix:
     """Concatenate the given row ranges into one standalone CSR (rows in
     strip order; full column space).  An empty strip list yields an
-    empty 0-row matrix (harmonize_wplans pads such chips)."""
+    empty 0-row matrix (``_harmonize`` pads such devices)."""
     if not strips:
         return CSRMatrix(0, csr.n_cols, np.zeros(1, csr.row_ptr.dtype),
                          csr.col_idx[:0].copy(), csr.values[:0].copy())
@@ -292,100 +280,50 @@ def _harmonize(metas: List[PlanMeta], ts: List[dict]) -> Tuple[PlanMeta, dict]:
 
 
 class MultiChipSpMV:
-    """Row-partitioned SpMV over a 1-D mesh: y_slab = A_slab @ allgather(x).
+    """Row-partitioned SpMV over a 1-D mesh: y_strips = A_strips @ allgather(x).
 
     Args:
       csr: the full matrix.
       devices: list of jax devices (defaults to all).
       dtype: "f32" / "bf16" / "f64".
-      config: packing tunables (relabel is applied GLOBALLY before
-        partitioning: x is replicated via all_gather, so all chips must
-        share one column space).
-      backend: "pallas" (windowed wplan kernels, default) or "xla"
-        (portable scatter executor — the non-Pallas fallback).
+      config: packing tunables.
 
-    Instrumentation (round-3 review asks): ``stats`` records per-slab nnz
-    balance (``slab_nnz``, ``balance`` = max/mean) and, for the pallas
-    backend, harmonization padding overhead (``pad_vregs`` padded vs
-    ``real_vregs`` real value-tile vregs per chip).
+    ``stats`` records the per-device nnz balance (``slab_nnz``, and
+    ``balance`` = max/mean).
     """
 
     def __init__(self, csr: CSRMatrix, devices=None, dtype: str = "f32",
-                 config: DaspConfig = DEFAULT_CONFIG,
-                 backend: str = "pallas"):
-        if backend not in ("pallas", "xla"):
-            raise ValueError("backend must be 'pallas' or 'xla'")
+                 config: DaspConfig = DEFAULT_CONFIG):
         devices = devices if devices is not None else jax.devices()
         self.n_devices = len(devices)
         self.mesh = Mesh(np.array(devices), ("x",))
         self.dtype = dtype
-        self.backend = backend
         self.n_rows, self.n_cols = csr.n_rows, csr.n_cols
         self.nnz = csr.nnz
         self.stats = {}
 
-        # Column relabel must be GLOBAL here (x is replicated via
-        # all_gather; per-chip perms would need per-chip copies of x), so
-        # apply it once before partitioning and pack each slab with
-        # relabel off.
-        import dataclasses as _dc
-        self.col_perm = None
-        self.row_perm = None
-        if config.relabel != "off" and csr.nnz:
-            from .relabel import (apply_col_perm, apply_sym_perm,
-                                  choose_relabel, first_touch_perm)
-            sym = csr.n_rows == csr.n_cols
-            if config.relabel == "auto":
-                self.col_perm = choose_relabel(csr, config.relabel_hub_deg,
-                                               symmetric=sym)
-            else:
-                self.col_perm = first_touch_perm(csr,
-                                                 config.relabel_hub_deg)
-            if self.col_perm is not None:
-                if sym:
-                    csr = apply_sym_perm(csr, self.col_perm)
-                    self.row_perm = self.col_perm
-                else:
-                    csr = apply_col_perm(csr, self.col_perm)
-            config = _dc.replace(config, relabel="off")
-        # slab y's are stitched back by row range, so per-slab plans must
-        # keep slab-local row order (no independent length-grouping)
-        config = _dc.replace(config, row_sort="off")
-
-        # strip-interleaved partition of whole 128-row blocks (block
-        # alignment keeps the pallas outgather blocks chip-local; it is
-        # harmless for the scatter executor): every chip's sub-matrix
-        # samples the whole row space, so per-chip packers see similar
-        # class mixes and the harmonized union pads far less than
-        # contiguous slabs on skewed inputs (see partition_strips)
-        from .wplan import LANES
+        # strip-interleaved partition: every device's sub-matrix samples
+        # the whole row space, so per-device packers see similar class
+        # mixes and the harmonized union pads far less than contiguous
+        # slabs on skewed inputs (see partition_strips)
         self.strips, slab_nnz = partition_strips(csr, self.n_devices,
-                                                 LANES)
+                                                 config.slice_rows)
         self.stats["slab_nnz"] = slab_nnz
         self.stats["balance"] = (max(slab_nnz)
                                  / max(sum(slab_nnz) / len(slab_nnz), 1.0))
 
-        if backend == "xla":
-            self._build_xla(csr, config)
-        else:
-            self._build_pallas(csr, config)
-
-    # ---- per-chip lowering: portable scatter executor ----------------
-    def _build_xla(self, csr: CSRMatrix, config: DaspConfig) -> None:
         metas, ts = [], []
         for strips in self.strips:
             plan = build_plan(strips_csr(csr, strips), config)
             m, t = plan_to_scatter_arrays(plan, self.dtype)
             metas.append(m)
             ts.append(t)
-        self.overflows = [None] * self.n_devices
         self.meta, stacked = _harmonize(metas, ts)
         self._x_total = -(-self.n_cols // self.n_devices) * self.n_devices
-
         meta = self.meta
 
         def step(arrays, x_sharded):
-            # x arrives row-sharded; replicate it on-chip over ICI — the
+            # x arrives row-sharded; replicate it on every device — the
             # only communication in the whole SpMV.
             x_full = jax.tree.map(
                 lambda a: jax.lax.all_gather(a, "x", tiled=True), x_sharded)
@@ -395,223 +333,45 @@ class MultiChipSpMV:
                 return jnp.stack([y["hi"], y["lo"]])[None]
             return y[None]
 
-        self._finish(step, stacked)
-
-    # ---- per-chip lowering: windowed Pallas kernels ------------------
-    def _build_pallas(self, csr: CSRMatrix, config: DaspConfig) -> None:
-        from .wplan import (K_SOURCES, LANES, build_wplan, harmonize_wplans)
-        from .ops import pallas_backend as pb
-
-        from .wplan import merge_class_keys
-        chip_csrs = [strips_csr(csr, strips) for strips in self.strips]
-        plans = [build_wplan(c, config) for c in chip_csrs]
-        # Globally pinned class quantization: the per-chip stream-class
-        # merge is data-dependent, so chips land the same row populations
-        # in different (P, stride) keys and the harmonized union pads
-        # every chip for every other chip's keys.  Re-run the merge ONCE
-        # over the union of raw class masses and repack the chips whose
-        # own map disagrees with the global one.
-        union: dict = {}
-        for p in plans:
-            for cls, stride, mass in p.stats["key_mass"]:
-                union[(cls, stride)] = union.get((cls, stride), 0) + mass
-        from .wplan import SUB, VREG
-        gmap = merge_class_keys(
-            union, s_rows=(-(-max(csr.n_cols, 1) // VREG)) * SUB)
-        for d, p in enumerate(plans):
-            own = {tuple(k): tuple(v) for k, v in p.stats["class_map"]}
-            if any(gmap.get(k, k) != own[k] for k in own):
-                plans[d] = build_wplan(chip_csrs[d], config,
-                                       pin_classes=gmap)
-        self.overflows = [p.overflow for p in plans]
-        real_vregs = [sum(s.n_vregs for s in p.streams) for p in plans]
-        plans = harmonize_wplans(plans)
-        pad_vregs = [sum(s.n_vregs for s in p.streams) - r
-                     for p, r in zip(plans, real_vregs)]
-        self.stats["real_vregs"] = real_vregs
-        self.stats["pad_vregs"] = pad_vregs
-        # one shared outgather-slot trim across chips (stacking needs
-        # identical metas)
-        k_shared = 1
-        for p in plans:
-            used = p.out_src < p.n_y2_rows
-            if used.any():
-                k_shared = max(k_shared, int(
-                    (used * (np.arange(K_SOURCES) + 1)).max()))
-        lowered = [pb.plan_to_arrays(p, self.dtype, include_overflow=False,
-                                     k_sources=k_shared)
-                   for p in plans]
-        # The long gather-sum multiplicity (how many round-class streams one
-        # long row's vregs split into) may differ per chip; pad every chip's
-        # long_gat to the widest with the zero-pad index so stacking works.
-        wmax = max(a["long_gat"].shape[1] for _, a in lowered)
-        for _, a in lowered:
-            g = a["long_gat"]
-            if g.shape[1] < wmax:
-                pad_idx = sum(ix.shape[0] for ix in a["long_idx"])
-                a["long_gat"] = np.concatenate(
-                    [g, np.full((g.shape[0], wmax - g.shape[1]), pad_idx,
-                                np.int32)], axis=1)
-        metas = [m for m, _ in lowered]
-        assert all(m == metas[0] for m in metas[1:]), \
-            "harmonized plans must share one meta"
-        self.meta = metas[0]
-        # VMEM-resident per-chip executor (round 4): a chip's slab is
-        # ~1/N of the matrix, so nearly every arm fits the per-chip
-        # resident budget — the 1.5-4.5x residency factor applies in
-        # exactly the mode that scales.  prepare(uniform=True) skips the
-        # per-chip data-dependent compression tiers so every chip's
-        # constants share one shape signature (shard_map is SPMD); the
-        # outgather uses the SMEM-driven dynamic path for the same
-        # reason (out_src differs per chip; the static specialization of
-        # the single-chip path would mean per-chip programs).
-        self._res_fn = None
-        from .ops import resident as _rs
-        try:
-            for _, a in lowered:
-                _rs.prepare(self.meta, a, uniform=True)
-            if all(a.get("resident") is not None for _, a in lowered):
-                self._res_fn = _rs.make_resident_loop(self.meta, None,
-                                                      None)
-        except Exception as e:          # residency is an optimization
-            print(f"# multichip resident prepare failed: {e}")
-            self._res_fn = None
-        if self._res_fn is None:
-            for _, a in lowered:
-                a.pop("resident", None)
-        self.stats["resident"] = self._res_fn is not None
-        stacked = jax.tree.map(lambda *xs: np.stack(xs),
-                               *[a for _, a in lowered])
-        self._x_total = self.meta.s_rows * LANES
-
-        meta = self.meta
-
-        def step(arrays, x_shard):
-            x_full = jax.tree.map(
-                lambda a: jax.lax.all_gather(a, "x", tiled=True), x_shard)
-            if meta.dtype == "f64":
-                x2d = dict(hi=x_full["hi"].reshape(meta.s_rows, LANES),
-                           lo=x_full["lo"].reshape(meta.s_rows, LANES))
-            else:
-                x2d = x_full.reshape(meta.s_rows, LANES)
-            local = jax.tree.map(lambda a: a[0], arrays)
-            y = pb.spmv_fn(meta, local, x2d)
-            if meta.dtype == "f64":
-                return jnp.stack([y["hi"], y["lo"]])[None]
-            return y[None]
-
-        self._finish(step, stacked)
-
-    def _finish(self, step, stacked) -> None:
         self._step = jax.jit(jax.shard_map(
             step, mesh=self.mesh, in_specs=(P("x"), P("x")),
             out_specs=P("x"), check_vma=False))
         self._x_sharding = NamedSharding(self.mesh, P("x"))
         self._arrays = jax.device_put(stacked, self._x_sharding)
 
-    # ---- shared x preparation and y stitching ------------------------
     def _prep_x(self, x):
         xp = np.zeros(self._x_total, dtype=np.float64)
-        if self.col_perm is not None:
-            xp[self.col_perm] = np.asarray(x)[:self.n_cols]
-        else:
-            xp[:self.n_cols] = np.asarray(x)[:self.n_cols]
+        xp[:self.n_cols] = np.asarray(x)[:self.n_cols]
         if self.dtype == F64:
             hi, lo = dd.from_f64(xp)
             return jax.device_put(dict(hi=hi, lo=lo), self._x_sharding)
-        want = (ml_dtypes.bfloat16 if (self.dtype == "bf16"
-                                       and self.backend == "xla")
-                else np.float32)
+        want = ml_dtypes.bfloat16 if self.dtype == "bf16" else np.float32
         return jax.device_put(xp.astype(want), self._x_sharding)
 
     def __call__(self, x) -> np.ndarray:
         y = np.asarray(jax.device_get(
             self._step(self._arrays, self._prep_x(x))), dtype=np.float64)
         out = np.zeros(self.n_rows, dtype=np.float64)
-        x_rel = np.asarray(x)
-        if self.col_perm is not None:
-            # slab overflow CSRs carry relabeled column ids
-            xr = np.empty(self.n_cols, dtype=x_rel.dtype)
-            xr[self.col_perm] = x_rel[:self.n_cols]
-            x_rel = xr
         for d, strips in enumerate(self.strips):
             part = y[d, 0] + y[d, 1] if self.dtype == F64 else y[d]
-            ovf = self.overflows[d]
-            ovf_y = ovf.spmv(x_rel) if ovf is not None else None
             off = 0
             for start, end in strips:
                 out[start:end] = part[off:off + end - start]
-                if ovf_y is not None:
-                    out[start:end] += ovf_y[off:off + end - start]
                 off += end - start
-        if self.row_perm is not None:
-            out = out[self.row_perm]
         return out
 
     def timing_loop(self, iters: int):
-        """Jitted chained-iteration loop (bench --multichip): the same
-        differenced-loop contract as the single-chip operators.  When the
-        per-chip plans are VMEM-resident (stats["resident"]), the loop
-        runs one all_gather then ``iters`` resident iterations per chip —
-        the multichip analog of the single-chip resident loop, whose
-        chained perturbation is likewise chip-local."""
-        if getattr(self, "_res_fn", None) is not None:
-            rfn = self._res_fn
-            meta = self.meta
-            mesh = self.mesh
-
-            def step_r(arrays, x_shard, it):
-                x_full = jax.tree.map(
-                    lambda a: jax.lax.all_gather(a, "x", tiled=True),
-                    x_shard)
-                x2d = x_full.reshape(meta.s_rows, 128)
-                local = jax.tree.map(lambda a: a[0], arrays)
-                y = rfn(local, x2d, it if not meta.interpret else int(it))
-                return y[None]
-
-            if meta.interpret:
-                # interpret mode retraces per iteration count (cheap):
-                # the resident kernel's grid must be static there
-                cache = getattr(self, "_res_loops", None)
-                if cache is None:
-                    cache = self._res_loops = {}
-                loop = cache.get(iters)
-                if loop is None:
-                    import functools
-                    loop = jax.jit(jax.shard_map(
-                        functools.partial(step_r, it=iters), mesh=mesh,
-                        in_specs=(P("x"), P("x")), out_specs=P("x"),
-                        check_vma=False))
-                    cache[iters] = loop
-                return lambda x_dev: loop(self._arrays, x_dev)
-            loop = getattr(self, "_res_loop_jit", None)
-            if loop is None:
-                loop = self._res_loop_jit = jax.jit(jax.shard_map(
-                    step_r, mesh=mesh,
-                    in_specs=(P("x"), P("x"), P()), out_specs=P("x"),
-                    check_vma=False))
-            it = jnp.int32(iters)
-            return lambda x_dev: loop(self._arrays, x_dev, it)
-
+        """Jitted loop of ``iters + 1`` chained steps (bench --multichip):
+        the same contract as ``SpMVOperator.timing_loop``."""
         step = self._step
-
         loop = getattr(self, "_loop_jit", None)
         if loop is None:
             @jax.jit
             def loop(arrays, x, it):
                 def body(_, x):
-                    y = step(arrays, x)
-                    lead = jax.tree.leaves(y)[0]
-                    bump = (lead.ravel()[0].astype(jnp.float32)
-                            * jnp.float32(1e-36))
-                    return jax.tree.map(
-                        lambda a: a + bump.astype(a.dtype), x)
+                    return perturb_x(x, step(arrays, x))
                 x = jax.lax.fori_loop(0, it, body, x)
                 return step(arrays, x)
             self._loop_jit = loop
         it = jnp.int32(iters)
         return lambda x_dev: loop(self._arrays, x_dev, it)
-
-
-# Back-compat alias: the windowed pallas backend is the default.
-WMultiChipSpMV = MultiChipSpMV

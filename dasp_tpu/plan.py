@@ -1,9 +1,11 @@
-"""Pack plans: reshaping CSR into TPU-tile-shaped dense fragments.
+"""Pack plans: reshaping CSR into dense (8, 128) tile-shaped fragments.
 
-This is the TPU-native re-design of the reference's packers
-(``dasp_f64.h:595-1157``).  The GPU reference packs rows into 8x4 ``m8n8k4``
-MMA fragments; a TPU's native vector tile is (8 sublanes x 128 lanes) and its
-MXU is 128x128, so every structure here is built from (8,128)-style tiles:
+This is the re-design of the reference's packers (``dasp_f64.h:595-1157``).
+The reference packs rows into 8x4 ``m8n8k4`` MMA fragments; here every
+structure is built from (SUBLANES=8, LANES=128) tiles that the XLA
+executor (``ops/xla_backend.py``) gathers, multiplies and reduces as dense
+arrays.  The short axis of a tile is called the sublane axis, the long one
+the lane axis:
 
 * **Short rows (1..4 nnz)** -> ``ShortStream``: rows are laid out one per
   *lane column segment* of an (8,128) tile with a sublane *stride* s:

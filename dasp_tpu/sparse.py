@@ -34,7 +34,7 @@ class CSRMatrix:
 
     @property
     def row_lengths(self) -> np.ndarray:
-        # Cached: the packer and the relabel policies read this repeatedly
+        # Cached: the packer and the partitioner read this repeatedly
         # and an np.diff over multi-M rows is a full memory pass each time.
         # CSRMatrix is treated as immutable everywhere (permutations build
         # new instances), so memoization is safe.

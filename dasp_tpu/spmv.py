@@ -1,10 +1,11 @@
 """User-facing SpMV operator.
 
-``SpMVOperator`` is the TPU-native equivalent of the reference's ``spmv_all``
-entry (``dasp_f64.h:486``) split into its natural phases: analyze+pack happen
+``SpMVOperator`` is the equivalent of the reference's ``spmv_all`` entry
+(``dasp_f64.h:486``) split into its natural phases: analyze+pack happen
 once at construction (host side), the jitted ``__call__`` runs the packed
-kernels on device, and the permutation is undone on-chip so callers get y in
-original row order (the reference instead returns a permuted Y plus
+structures on device through the XLA executor (``ops/xla_backend.py``),
+and the permutation is undone on device so callers get y in original row
+order (the reference instead returns a permuted Y plus
 ``order_rid``; see ``main_f64.cu:3-16``).
 """
 
@@ -25,14 +26,6 @@ from .ops import xla_backend
 from .ops.xla_backend import BF16, F32, F64
 
 DTYPES = (F32, BF16, F64)
-_BACKENDS = ("xla", "pallas", "auto")
-
-
-def _tpu_available() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
 
 
 class SpMVOperator:
@@ -43,54 +36,33 @@ class SpMVOperator:
       dtype: "f32", "bf16" (reference's spmv_half path) or "f64"
         (reference's spmv_double path, run as f32x2 double-double).
       config: packing tunables.
-      backend: "xla", "pallas", or "auto" (pallas where supported).
-
-    f64 accuracy note: on production-size plans (past a ~16 MB stream
-    floor) the default f64 pipeline trades precision for speed — column
-    sums run in plain f32 and the lo value stream stores as bf16 —
-    delivering ~1e-7 relative error instead of the full double-double
-    ~1e-13 (still far inside the reference's 1e-5 verification contract,
-    main_f64.cu:8).  Pass ``config=DaspConfig(strict_f64=True)`` to keep
-    the full dd pipeline (e.g. for cg_solve_dd residual floors).
     """
 
-    def __new__(cls, csr, dtype: str = F32,
-                config: DaspConfig = DEFAULT_CONFIG, backend: str = "auto"):
-        from .wplan import WPlan
-        if backend == "pallas" or isinstance(csr, WPlan) or (
-                backend == "auto" and isinstance(csr, CSRMatrix)
-                and _tpu_available()):
-            # a prebuilt WPlan always means the windowed Pallas operator
-            # (one pack shared across dtypes; see PallasSpMV.__init__)
-            from .ops.pallas_backend import PallasSpMV
-            return PallasSpMV(csr, dtype, config)
-        return super().__new__(cls)
-
     def __init__(self, csr: Union[CSRMatrix, DaspPlan], dtype: str = F32,
-                 config: DaspConfig = DEFAULT_CONFIG, backend: str = "auto"):
+                 config: DaspConfig = DEFAULT_CONFIG):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}")
-        if backend not in _BACKENDS:
-            raise ValueError(f"backend must be one of {_BACKENDS}")
         t0 = time.perf_counter()
         if isinstance(csr, DaspPlan):
             self.plan = csr
         else:
             self.plan = build_plan(csr, config)
         self.dtype = dtype
-        self.backend = backend
-        # (the windowed Pallas implementation is dispatched in __new__;
-        # reaching here means the XLA executor)
         self._meta, self._arrays = xla_backend.plan_to_arrays(
             self.plan, dtype)
         self._raw_fn = xla_backend.spmv_fn
         self._fn = jax.jit(self._raw_fn, static_argnums=0)
+        t1 = time.perf_counter()
         # Packed streams live on device for the operator's lifetime
         # (the reference uploads once before its timing loop,
         # dasp_f64.h:1239-1278).
-        self._arrays = jax.device_put(self._arrays)
-        # Mirrors the preprocessing wall-time metric (dasp_f16.h:1444-1446).
-        self.preprocess_seconds = time.perf_counter() - t0
+        self._arrays = jax.block_until_ready(jax.device_put(self._arrays))
+        t2 = time.perf_counter()
+        # Host pack (analyze + pack + lowering) and host-to-device upload;
+        # their sum mirrors the preprocessing metric (dasp_f16.h:1444-1446).
+        self.pack_seconds = t1 - t0
+        self.upload_seconds = t2 - t1
+        self.preprocess_seconds = t2 - t0
 
     @property
     def n_rows(self) -> int:
@@ -119,14 +91,12 @@ class SpMVOperator:
         return self._fn(self._meta, self._arrays, x_dev)
 
     def timing_loop(self, iters: int):
-        """A jitted function running ``iters`` chained SpMV iterations on
-        device in ONE call (the per-call dispatch overhead of a remote/TPU
-        runtime would otherwise swamp sub-ms kernels).  Returns
-        fn(x_dev) -> y_dev."""
+        """A jitted function running ``iters + 1`` chained SpMV iterations
+        on device in ONE call, so per-call dispatch does not enter the
+        per-iteration time.  Returns fn(x_dev) -> y_dev."""
         raw, meta = self._raw_fn, self._meta
 
         # runtime iteration count: one compile serves every loop length
-        # (see PallasSpMV.timing_loop)
         loop = getattr(self, "_loop_jit", None)
         if loop is None:
             @jax.jit
@@ -138,21 +108,12 @@ class SpMVOperator:
                 return raw(meta, arrays, x)
             self._loop_jit = loop
 
-        import jax.numpy as jnp
         it = jnp.int32(iters)
         return lambda x_dev: loop(self._arrays, x_dev, it)
 
-    def perm_in(self, v):
-        """Interface parity with PallasSpMV (the XLA executor never
-        relabels, so both directions are the identity)."""
-        return np.asarray(v)
-
-    perm_out = perm_in
-
     def matmat(self, X) -> np.ndarray:
-        """Multi-vector SpMV, Y = A @ X for X (n_cols, k).  The XLA
-        executor loops columns (the Pallas operator has the multi-x
-        fast path)."""
+        """Multi-vector SpMV, Y = A @ X for X (n_cols, k), one column
+        at a time."""
         X = np.asarray(X)
         return np.stack([self(X[:, j]) for j in range(X.shape[1])],
                         axis=1)
@@ -165,6 +126,6 @@ class SpMVOperator:
 
 
 def spmv(csr: CSRMatrix, x, dtype: str = F32,
-         config: DaspConfig = DEFAULT_CONFIG, backend: str = "auto"):
+         config: DaspConfig = DEFAULT_CONFIG):
     """One-shot convenience wrapper: pack + run once."""
-    return SpMVOperator(csr, dtype=dtype, config=config, backend=backend)(x)
+    return SpMVOperator(csr, dtype=dtype, config=config)(x)

@@ -2,7 +2,8 @@
 """Conjugate-gradient solve with dasp_tpu — the canonical SpMV consumer.
 
 Solves A x = b for a symmetric positive-definite A, keeping the whole
-iteration on-device: the packed SpMV is jitted together with the CG vector
+iteration on device: the packed SpMV (the XLA executor's ``spmv_fn`` on
+the operator's device arrays) is jitted together with the CG vector
 updates, so one `solve` call runs every iteration without host round trips.
 
 Usage: python examples/cg_solver.py [n]
@@ -32,45 +33,24 @@ def build_spd(n: int, rng) -> "dasp_tpu.CSRMatrix":
 
 
 
-def _require_shared_space(op, who):
-    """On-device CG feeds y back into x: the operator must carry ONE
-    shared x/y index space.  The default row_sort="auto" may compose an
-    independent row length-grouping on top of a symmetric relabel
-    (wplan.py), decoupling the spaces -- pack with row_sort="off"."""
-    pl = op.plan
-    if pl.row_perm is not None and (
-            pl.col_perm is None
-            or not np.array_equal(pl.row_perm, pl.col_perm)):
-        raise ValueError(
-            f"{who} iterates on-device and needs x and y in one "
-            "index space: build the operator with "
-            "DaspConfig(row_sort='off')")
-
 def cg_solve_dd(op, b: np.ndarray, tol: float = None,
                 maxiter: int = 4000):
-    """CG in double-double (f32x2) precision on-device: op is a
-    PallasSpMV built with dtype="f64".  f32 CG stalls around 1e-3-1e-4
+    """CG in double-double (f32x2) precision on device: op is an
+    SpMVOperator built with dtype="f64".  f32 CG stalls around 1e-3-1e-4
     relative error on ill-conditioned Laplacians; the dd state vectors,
     dd matvec and compensated dd dot products restore fp64-grade
-    convergence on hardware with no native f64 (the reference's
-    spmv_double consumer story, main_f64.cu)."""
+    convergence (the reference's spmv_double consumer story,
+    main_f64.cu)."""
     import jax
     import jax.numpy as jnp
     from dasp_tpu.ops import dd
-    from dasp_tpu.ops.pallas_backend import spmv_fn
-
-    _require_shared_space(op, "cg_solve_dd()")
+    from dasp_tpu.ops.xla_backend import spmv_fn
 
     meta, arrays = op._meta, op._arrays
     n = op.n_rows
-    pad = meta.s_rows * 128 - n
 
     def matvec(xh, xl):
-        x2d = dict(hi=jnp.concatenate([xh, jnp.zeros(pad, jnp.float32)])
-                   .reshape(meta.s_rows, 128),
-                   lo=jnp.concatenate([xl, jnp.zeros(pad, jnp.float32)])
-                   .reshape(meta.s_rows, 128))
-        y = spmv_fn(meta, arrays, x2d)
+        y = spmv_fn(meta, arrays, dict(hi=xh, lo=xl))
         return y["hi"], y["lo"]
 
     @jax.jit
@@ -101,37 +81,27 @@ def cg_solve_dd(op, b: np.ndarray, tol: float = None,
                                                           state)
         return xh, xl, jnp.sqrt(rsh), it
 
-    b_int = op.perm_in(np.asarray(b, dtype=np.float64))
+    b = np.asarray(b, dtype=np.float64)
     if tol is None:
-        tol = 1e-10 * float(np.linalg.norm(b_int))
-    bh, bl = dd.from_f64(b_int)
+        tol = 1e-10 * float(np.linalg.norm(b))
+    bh, bl = dd.from_f64(b)
     xh, xl, res, it = solve(jnp.asarray(bh), jnp.asarray(bl))
-    x = dd.to_f64(np.asarray(xh), np.asarray(xl))
-    return op.perm_out(x), res, it
+    return dd.to_f64(np.asarray(xh), np.asarray(xl)), res, it
 
 
 def cg_solve(op, b: np.ndarray, tol: float = 1e-6, maxiter: int = 500):
-    """CG on-device: op is a PallasSpMV/SpMVOperator (f32)."""
+    """CG on device: op is an SpMVOperator built with dtype="f32"."""
     import jax
     import jax.numpy as jnp
-    from dasp_tpu.ops.pallas_backend import spmv_fn, prep_x
-
-    _require_shared_space(op, "cg_solve()")
+    from dasp_tpu.ops.xla_backend import spmv_fn
 
     meta, arrays = op._meta, op._arrays
-    n = op.n_rows
-
-    def matvec(x_flat):
-        # re-lay x into the (s_rows,128) table shape on device
-        pad = meta.s_rows * 128 - n
-        x2d = jnp.concatenate([x_flat, jnp.zeros(pad, jnp.float32)])
-        return spmv_fn(meta, arrays, x2d.reshape(meta.s_rows, 128))
 
     @jax.jit
     def solve(b):
         def body(state):
             x, r, p, rs, it = state
-            ap = matvec(p)
+            ap = spmv_fn(meta, arrays, p)
             alpha = rs / jnp.dot(p, ap)
             x = x + alpha * p
             r = r - alpha * ap
@@ -148,12 +118,10 @@ def cg_solve(op, b: np.ndarray, tol: float = 1e-6, maxiter: int = 500):
         x, r, _, rs, it = jax.lax.while_loop(cond, body, state)
         return x, jnp.sqrt(rs), it
 
-    # run in the operator's internal index space (symmetric relabel keeps
-    # x and y in one space; CG's dot products are permutation-invariant),
-    # encode b on entry / decode x on exit
-    b_int = op.perm_in(np.asarray(b, dtype=np.float32))
-    x, res, it = solve(jnp.asarray(b_int))
-    return op.perm_out(np.asarray(x)), res, it
+    # the executor returns y in original row order, so y feeds straight
+    # back as the next x
+    x, res, it = solve(jnp.asarray(np.asarray(b, dtype=np.float32)))
+    return np.asarray(x), res, it
 
 
 def main():
@@ -164,10 +132,7 @@ def main():
     dtype = sys.argv[2] if len(sys.argv) > 2 else "f64"
     rng = np.random.default_rng(0)
     csr = build_spd(n, rng)
-    op = dasp_tpu.SpMVOperator(csr, dtype=dtype, backend="pallas",
-                         # on-device iteration feeds y back into x: keep one
-                         # shared index space (no independent row grouping)
-                         config=dasp_tpu.DaspConfig(row_sort="off"))
+    op = dasp_tpu.SpMVOperator(csr, dtype=dtype)
     x_true = rng.standard_normal(n)
     b = csr.spmv(x_true)
 

@@ -2,8 +2,9 @@
 """PageRank with dasp_tpu — the canonical power-law-graph SpMV consumer.
 
 Power iteration r <- d * A^T_colnorm r + (1-d)/n, with the whole loop
-on-device: the packed SpMV jits together with the rank updates, so one
-call runs every iteration without host round trips.  Exercises exactly
+on device: the packed SpMV (the XLA executor's ``spmv_fn``) jits together
+with the rank updates, so one call runs every iteration without host round
+trips.  Exercises exactly
 the short-row / long-row mix the wikitalk-like benchmark measures.
 
 Usage: python examples/pagerank.py [n]
@@ -31,56 +32,37 @@ def build_transition(n: int, rng) -> "dasp_tpu.CSRMatrix":
 
 
 def pagerank(op, damping: float = 0.85, iters: int = 50):
+    """``iters`` power iterations plus a final product, all on device; op
+    is an SpMVOperator built with dtype="f32"."""
     import jax
     import jax.numpy as jnp
-    from dasp_tpu.ops.pallas_backend import spmv_fn
+    from dasp_tpu.ops.xla_backend import spmv_fn
 
-    # The on-device loop feeds y straight back into x: the operator must
-    # carry ONE shared x/y index space (pack with row_sort="off"; the
-    # default "auto" may compose an independent row length-grouping on
-    # top of a symmetric relabel, decoupling the two spaces).
-    p = op.plan
-    if p.row_perm is not None and (
-            p.col_perm is None
-            or not np.array_equal(p.row_perm, p.col_perm)):
-        raise ValueError(
-            "pagerank() iterates on-device and needs x and y in one "
-            "index space: build the operator with "
-            "DaspConfig(row_sort='off')")
     meta, arrays = op._meta, op._arrays
     # cache the jitted loop per (damping, iters): a fresh jit every call
     # would retrace and re-dispatch the whole program each time
     cache = getattr(op, "_pagerank_jit", None)
     if cache is None:
         cache = op._pagerank_jit = {}
-    if (damping, iters) in cache:
-        return np.asarray(op.perm_out(
-            np.asarray(cache[damping, iters](arrays))[:op.n_rows]))
-    n = op.n_rows
-    LANES = 128
-    teleport = (1.0 - damping) / n
+    run = cache.get((damping, iters))
+    if run is None:
+        n = op.n_rows
+        teleport = (1.0 - damping) / n
 
-    @jax.jit
-    def run(arrays):
-        r0 = jnp.full((meta.s_rows, LANES), 1.0 / n, jnp.float32)
+        @jax.jit
+        def run(arrays):
+            def body(_, r):
+                r = damping * spmv_fn(meta, arrays, r) + teleport
+                # dangling mass redistributes uniformly (columns with no
+                # outlinks contribute nothing through A; renormalize)
+                return r / jnp.sum(r)
 
-        def body(_, r2d):
-            y = spmv_fn(meta, arrays, r2d)
-            r = damping * y + teleport
-            # dangling mass redistributes uniformly (columns with no
-            # outlinks contribute nothing through A; renormalize)
-            r = r / jnp.sum(r)
-            pad = jnp.zeros(meta.s_rows * LANES - n, jnp.float32)
-            return jnp.concatenate([r, pad]).reshape(meta.s_rows, LANES)
+            r = jax.lax.fori_loop(0, iters, body,
+                                  jnp.full(n, 1.0 / n, jnp.float32))
+            return spmv_fn(meta, arrays, r) * damping + teleport
 
-        r2d = jax.lax.fori_loop(0, iters, body, r0)
-        return spmv_fn(meta, arrays, r2d) * damping + teleport
-
-    cache[damping, iters] = run
-    # the on-device loop runs in the operator's internal index space (a
-    # symmetric relabel keeps x and y in ONE space, so y feeds straight
-    # back); decode to original node order only at the exit
-    return op.perm_out(np.asarray(run(arrays))[:n])
+        cache[damping, iters] = run
+    return np.asarray(run(arrays))
 
 
 def main():
@@ -91,11 +73,8 @@ def main():
     csr = build_transition(n, rng)
     print(f"graph: {n} nodes, {csr.nnz} edges")
     t0 = time.time()
-    op = dasp_tpu.SpMVOperator(csr, dtype="f32", backend="pallas",
-                         # on-device iteration feeds y back into x: keep one
-                         # shared index space (no independent row grouping)
-                         config=dasp_tpu.DaspConfig(row_sort="off"))
-    print(f"pack+compile setup: {time.time() - t0:.1f}s")
+    op = dasp_tpu.SpMVOperator(csr, dtype="f32")
+    print(f"pack+upload setup: {time.time() - t0:.1f}s")
     pagerank(op)                           # compile warmup (same trace)
     t0 = time.time()
     r = pagerank(op)

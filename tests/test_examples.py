@@ -1,10 +1,9 @@
-"""The examples run end-to-end (tiny sizes, CPU interpret mode)."""
+"""The examples run end to end on the XLA executor (tiny sizes, CPU)."""
 
 import os
 import sys
 
 import numpy as np
-import pytest
 
 EX = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "examples")
@@ -15,7 +14,7 @@ def test_cg_solver_example(rng):
     import cg_solver
     import dasp_tpu
     csr = cg_solver.build_spd(512, rng)
-    op = dasp_tpu.SpMVOperator(csr, dtype="f32", backend="pallas")
+    op = dasp_tpu.SpMVOperator(csr, dtype="f32")
     b = rng.standard_normal(csr.n_rows)
     x, rnorm, iters = cg_solver.cg_solve(op, b, tol=1e-5, maxiter=300)
     r = b - csr.spmv(np.asarray(x))
@@ -26,16 +25,7 @@ def test_pagerank_example(rng):
     import pagerank
     import dasp_tpu
     csr = pagerank.build_transition(1500, rng)
-    # default config may decouple the x/y spaces (row-sort composition):
-    # the on-device loop requires the shared space and must say so
-    op_bad = dasp_tpu.SpMVOperator(csr, dtype="f32", backend="pallas")
-    if op_bad.plan.row_perm is not None and not np.array_equal(
-            op_bad.plan.row_perm, op_bad.plan.col_perm):
-        with pytest.raises(ValueError, match="one\\s+index space"):
-            pagerank.pagerank(op_bad, iters=2)
-    op = dasp_tpu.SpMVOperator(
-        csr, dtype="f32", backend="pallas",
-        config=dasp_tpu.DaspConfig(row_sort="off"))
+    op = dasp_tpu.SpMVOperator(csr, dtype="f32")
     r = pagerank.pagerank(op, iters=30)
     assert r.shape == (csr.n_rows,)
     rh = np.full(csr.n_rows, 1.0 / csr.n_rows)
@@ -44,6 +34,8 @@ def test_pagerank_example(rng):
         rh = rh / rh.sum()
     rh = 0.85 * csr.spmv(rh) + 0.15 / csr.n_rows
     assert np.abs(r - rh).max() / np.abs(rh).max() < 1e-3
+    # the jitted loop is cached per (damping, iters) and reused
+    np.testing.assert_array_equal(pagerank.pagerank(op, iters=30), r)
 
 
 def test_cg_solver_dd(rng):
@@ -51,7 +43,7 @@ def test_cg_solver_dd(rng):
     import cg_solver
     import dasp_tpu
     csr = cg_solver.build_spd(512, rng)
-    op = dasp_tpu.SpMVOperator(csr, dtype="f64", backend="pallas")
+    op = dasp_tpu.SpMVOperator(csr, dtype="f64")
     x_true = rng.standard_normal(csr.n_rows)
     b = csr.spmv(x_true)
     x, rnorm, iters = cg_solver.cg_solve_dd(op, b, maxiter=400)

@@ -134,56 +134,3 @@ def test_native_parser_symmetric(tmp_path):
     a = read_mtx(p)
     b = native.read_mtx(p)
     np.testing.assert_array_equal(a.to_dense(), b.to_dense())
-
-
-def test_native_deal_cascade_matches_numpy_waves(rng):
-    """dasp_deal_cascade == the _deal_windows wave loops, elementwise
-    (ce AND pos), on randomized monotone chunk assignments."""
-    from dasp_tpu.io import native
-    if native.deal_cascade(np.array([1], np.uint8),
-                           np.array([1], np.int64),
-                           np.array([0], np.int64)) is None:
-        import pytest
-        pytest.skip("libdasp_host.so not built")
-    SUB = 8
-
-    def py_waves(newr, w8, ce):
-        n = ce.size
-        idx = np.arange(n)
-        ce = ce.copy()
-        pos = np.zeros(n, dtype=np.int64)
-        nrc = newr.copy()
-        for _ in range(36):
-            nrc = newr.copy()
-            nrc[1:] |= ce[1:] != ce[:-1]
-            pos = idx - np.maximum.accumulate(np.where(nrc, idx, 0))
-            over_f = (pos >= SUB) & (ce < w8 - 1)
-            if not over_f.any():
-                break
-            ce[over_f] += 1
-        for _ in range(36):
-            cend_idx = np.flatnonzero(np.append(nrc[1:], True))
-            rpos = (pos[cend_idx])[np.searchsorted(cend_idx, idx)] - pos
-            over_b = (rpos >= SUB) & (ce > 0)
-            if not over_b.any():
-                break
-            ce[over_b] -= 1
-            nrc = newr.copy()
-            nrc[1:] |= ce[1:] != ce[:-1]
-            pos = idx - np.maximum.accumulate(np.where(nrc, idx, 0))
-        return ce, pos
-
-    for trial in range(50):
-        nrows = int(rng.integers(1, 16))
-        lens = rng.integers(1, 60, nrows)
-        n = int(lens.sum())
-        newr = np.zeros(n, dtype=bool)
-        newr[np.concatenate([[0], np.cumsum(lens)[:-1]])] = True
-        w8v = int(rng.integers(1, 64))
-        w8 = np.full(n, w8v, dtype=np.int64)
-        ce = np.concatenate([np.sort(rng.integers(0, w8v, l))
-                             for l in lens]).astype(np.int64)
-        c1, p1 = py_waves(newr, w8, ce)
-        c2, p2 = native.deal_cascade(newr, w8, ce.copy())
-        np.testing.assert_array_equal(c1, c2)
-        np.testing.assert_array_equal(p1, p2)

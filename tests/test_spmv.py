@@ -8,29 +8,9 @@ tolerance loose (reference uses 1.0 absolute, ``main_f16.cu:10``).
 import numpy as np
 import pytest
 
-from dasp_tpu import SpMVOperator, build_plan
+from dasp_tpu import SpMVOperator
 from dasp_tpu.sparse import (CSRMatrix, fem_like, mixed_categories,
                              powerlaw_like, random_csr)
-
-
-def _check(csr, rng, dtype, rtol, atol):
-    x = rng.standard_normal(csr.n_cols)
-    if dtype == "bf16":
-        # Golden on bf16-rounded inputs: the remaining deviation is then
-        # accumulation error only (we accumulate in f32; the reference's f16
-        # path tolerates 1.0 absolute, main_f16.cu:10).
-        import ml_dtypes
-        rcsr = CSRMatrix(csr.n_rows, csr.n_cols, csr.row_ptr, csr.col_idx,
-                         csr.values.astype(ml_dtypes.bfloat16)
-                         .astype(np.float64))
-        x_r = x.astype(ml_dtypes.bfloat16).astype(np.float64)
-        golden = rcsr.spmv(x_r)
-    else:
-        golden = csr.spmv(x)
-    op = SpMVOperator(csr, dtype=dtype, backend="xla")
-    y = op(x)
-    scale = np.maximum(np.abs(golden), 1.0)
-    np.testing.assert_allclose(y / scale, golden / scale, rtol=rtol, atol=atol)
 
 
 CASES = {
@@ -44,80 +24,23 @@ CASES = {
 
 @pytest.mark.parametrize("name", ["mixed", "fem", "powerlaw", "all_short"])
 @pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
-def test_spmv_golden(rng, name, dtype):
+def test_spmv_golden(rng, check_golden, name, dtype):
     csr = CASES[name](rng)
     tol = {"f32": (1e-5, 1e-5), "f64": (1e-9, 1e-9), "bf16": (0.05, 0.05)}
     rtol, atol = tol[dtype]
-    _check(csr, rng, dtype, rtol, atol)
+    check_golden(csr, rng, dtype, rtol, atol)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
-def test_spmv_long_rows_only(rng, dtype):
+def test_spmv_long_rows_only(rng, check_golden, dtype):
     csr = random_csr(6, 4000,
                      np.array([256, 300, 1000, 2048, 257, 4000]), rng)
-    _check(csr, rng, dtype, 1e-5 if dtype == "f32" else 1e-9, 1e-5)
-
-
-def test_spmv_dd_lo_bf16_gate(rng, monkeypatch):
-    """Big dd plans store the lo value stream bf16 (plan_to_arrays gate):
-    accuracy relaxes from ~1e-13 to ~1e-9 but stays four digits inside the
-    reference's 1e-5 contract (main_f64.cu:8)."""
-    from dasp_tpu.ops import pallas_backend as pb
-    monkeypatch.setattr(pb, "DD_LO16_MIN_BYTES", 0)   # force the gate
-    csr = CASES["mixed"](rng)
-    x = rng.standard_normal(csr.n_cols)
-    op = SpMVOperator(csr, dtype="f64")
-    y = np.asarray(op(x), dtype=np.float64)
-    gold = csr.spmv(x)
-    scale = np.max(np.abs(gold)) + 1e-30
-    np.testing.assert_allclose(y, gold, rtol=0, atol=1e-7 * scale)
-
-
-def test_spmv_dd_f32_colsum_tier(rng, monkeypatch):
-    """Big streamed dd plans run high-P streams' COLSUM in plain f32
-    (pallas_backend.DD_F32_COLSUM_P); downstream reductions stay
-    compensated dd, so the error is ~2^-23 of the row's absolute mass
-    regardless of row length — inside main_f64.cu:8's 1e-5 contract."""
-    from dasp_tpu.ops import pallas_backend as pb
-    monkeypatch.setattr(pb, "DD_F32_FORCE", True)
-    monkeypatch.setattr(pb, "DD_F32_COLSUM_P", 1)     # every stream
-    csr = CASES["mixed"](rng)
-    x = rng.standard_normal(csr.n_cols)
-    op = SpMVOperator(csr, dtype="f64", backend="pallas")
-    assert any(op._meta.dd_f32), "tier did not engage"
-    y = np.asarray(op(x), dtype=np.float64)
-    gold = csr.spmv(x)
-    scale = np.max(np.abs(gold)) + 1e-30
-    np.testing.assert_allclose(y, gold, rtol=0, atol=1e-6 * scale)
-
-
-def test_spmv_strict_f64_disables_tiers(rng, monkeypatch):
-    """DaspConfig(strict_f64=True) keeps the full dd pipeline even when
-    both big-plan gates would otherwise fire: no f32-colsum streams, no
-    bf16 lo store, full ~1e-13 accuracy (ADVICE r3: the precision trade
-    must be visible at the API, not only via env vars)."""
-    from dasp_tpu.config import DaspConfig
-    from dasp_tpu.ops import pallas_backend as pb
-    monkeypatch.setattr(pb, "DD_F32_FORCE", True)
-    monkeypatch.setattr(pb, "DD_F32_COLSUM_P", 1)
-    monkeypatch.setattr(pb, "DD_LO16_MIN_BYTES", 0)
-    csr = CASES["mixed"](rng)
-    x = rng.standard_normal(csr.n_cols)
-    op = SpMVOperator(csr, dtype="f64", backend="pallas",
-                      config=DaspConfig(strict_f64=True))
-    assert not any(op._meta.dd_f32 or ()), "strict_f64 left the tier on"
-    assert all(st["vals_lo"].dtype == np.float32
-               for st in op._arrays["streams"] if "vals_lo" in st), \
-        "strict_f64 left a bf16 lo store"
-    y = np.asarray(op(x), dtype=np.float64)
-    gold = csr.spmv(x)
-    scale = np.max(np.abs(gold)) + 1e-30
-    np.testing.assert_allclose(y, gold, rtol=0, atol=1e-12 * scale)
+    check_golden(csr, rng, dtype, 1e-5 if dtype == "f32" else 1e-9, 1e-5)
 
 
 def test_spmv_empty_matrix(rng):
     csr = random_csr(50, 50, np.zeros(50, dtype=np.int64), rng)
-    op = SpMVOperator(csr, dtype="f32", backend="xla")
+    op = SpMVOperator(csr, dtype="f32")
     y = op(rng.standard_normal(50))
     np.testing.assert_array_equal(y, np.zeros(50))
 
@@ -127,7 +50,7 @@ def test_spmv_identity(rng):
     csr = CSRMatrix(n, n, np.arange(n + 1, dtype=np.int64),
                     np.arange(n, dtype=np.int32), np.ones(n))
     x = rng.standard_normal(n)
-    op = SpMVOperator(csr, dtype="f32", backend="xla")
+    op = SpMVOperator(csr, dtype="f32")
     np.testing.assert_allclose(op(x), x.astype(np.float32), rtol=1e-6)
 
 
@@ -144,72 +67,18 @@ def test_f64_precision_beats_f32(rng):
     csr.values = v
     x = np.ones(n)
     golden = csr.spmv(x)
-    y64 = SpMVOperator(csr, dtype="f64", backend="xla")(x)
+    y64 = SpMVOperator(csr, dtype="f64")(x)
     assert abs(y64[0] - golden[0]) < 1e-6
 
 
 def test_matmat_interface_parity(rng):
-    """matmat exists on every operator flavor (XLA executor loops;
-    Pallas has the multi-x fast path)."""
+    """matmat(X) equals one SpMV per column of X."""
     from dasp_tpu.sparse import mixed_categories
     import dasp_tpu
     csr = mixed_categories(300, rng)
     X = rng.standard_normal((csr.n_cols, 2))
     G = np.stack([csr.spmv(X[:, j]) for j in range(2)], axis=1)
     scale = np.maximum(np.abs(G), 1.0)
-    for backend in ("xla", "pallas"):
-        op = dasp_tpu.SpMVOperator(csr, dtype="f32", backend=backend)
-        np.testing.assert_allclose(op.matmat(X) / scale, G / scale,
-                                   rtol=2e-5, atol=2e-5)
-
-
-def test_prebuilt_wplan_shared_across_dtypes(rng):
-    """A prebuilt WPlan dispatches to the windowed operator and serves
-    every dtype (the plan is dtype-independent; bench.py packs once per
-    matrix and shares — the reference re-packs per dtype binary)."""
-    from dasp_tpu.sparse import mixed_categories
-    from dasp_tpu.wplan import build_wplan
-    from dasp_tpu.config import DEFAULT_CONFIG
-    csr = mixed_categories(300, rng)
-    plan = build_wplan(csr, DEFAULT_CONFIG)
-    x = rng.standard_normal(csr.n_cols)
-    golden = csr.spmv(x)
-    scale = np.maximum(np.abs(golden), 1.0)
-    for dtype, tol in (("f32", 1e-5), ("f64", 1e-9)):
-        op = SpMVOperator(plan, dtype=dtype)
-        assert op.backend == "pallas"
-        assert op.plan is plan
-        np.testing.assert_allclose(op(x) / scale, golden / scale,
-                                   rtol=tol, atol=tol)
-
-
-def test_outgather_range_split_matches(rng):
-    """The range-split outgather (WMeta.og_ranges: per-range static K
-    launches over contiguous OB-aligned block ranges, concatenated) is
-    bit-exact vs the single-launch form.  Real splits only engage past
-    ~100 OB groups (LAUNCH_PEN), so the multi-launch path is forced
-    here by hand-building the per-range tables the lowering would
-    produce."""
-    from dasp_tpu.ops import pallas_backend as pb
-    from dasp_tpu.wplan import build_wplan
-    csr = mixed_categories(9000, rng)        # > 64 blocks = 2 OB groups
-    x = rng.standard_normal(csr.n_cols)
-    plan = build_wplan(csr)
-    for dtype in ("f32", "f64"):
-        meta, arrays = pb.plan_to_arrays(plan, dtype)
-        assert len(meta.og_ranges) == 1          # too small to pay a split
-        xd = pb.prep_x(meta, x, plan.col_perm)
-        y0 = pb.spmv_fn(meta, arrays, xd)
-        B, K = meta.B_pad, meta.k_used
-        assert B >= 2 * pb.OB, "need two OB groups to split"
-        cut = pb.OB * (B // pb.OB // 2)
-        src, perm = arrays["out_src"], arrays["out_perm"]
-        arrays["og_src"] = [src[:cut], src[cut:]]
-        arrays["og_perm"] = [perm[:, :cut], perm[:, cut:]]
-        meta2 = meta._replace(og_ranges=((0, cut, K), (cut, B, K)))
-        y1 = pb.spmv_fn(meta2, arrays, xd)
-        if dtype == "f64":
-            np.testing.assert_array_equal(y0["hi"], y1["hi"])
-            np.testing.assert_array_equal(y0["lo"], y1["lo"])
-        else:
-            np.testing.assert_array_equal(y0, y1)
+    op = dasp_tpu.SpMVOperator(csr, dtype="f32")
+    np.testing.assert_allclose(op.matmat(X) / scale, G / scale,
+                               rtol=2e-5, atol=2e-5)
