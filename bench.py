@@ -33,6 +33,10 @@ import sys
 
 import numpy as np
 
+# CUDA numbers the cards as nvidia-smi does, so the power limit recorded is
+# that of the card measured (bench.device.smi_id)
+os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
+
 
 class _Summary:
     """Running suite summary; emitted after every arm and from the signal

@@ -72,3 +72,15 @@ def test_smoke_parses_nvidia_smi():
     for bad in ("", "NVIDIA H100", ", 700.00 W", "NVIDIA H100,"):
         with pytest.raises(ValueError):
             chip_smoke.parse_smi_line(bad)
+
+
+@pytest.mark.parametrize("visible,ordinal,want", [
+    (None, 2, "2"), ("3,1", 1, "1"), ("GPU-a1b2, GPU-c3d4", 1, "GPU-c3d4")])
+def test_smi_id_names_the_card_jax_uses(monkeypatch, visible, ordinal, want):
+    from types import SimpleNamespace
+    from dasp_tpu.bench.device import smi_id
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    assert smi_id(SimpleNamespace(local_hardware_id=ordinal)) == want

@@ -128,3 +128,15 @@ def test_config_rejects_bad_values():
                 dict(width_buckets=(8, 16)), dict(long_chunk=100)):
         with pytest.raises(ValueError):
             dataclasses.replace(DaspConfig(), **bad)
+
+
+def test_bf16_products_are_exact_in_f32():
+    """bf16 operands are multiplied in f32, where their product is exact:
+    (1 + 2^-7)^2 = 1 + 2^-6 + 2^-14 needs 15 mantissa bits, which a bf16
+    product would round away before the f32 sum."""
+    import jax.numpy as jnp
+    from dasp_tpu.ops.xla_backend import _Alg
+    a = jnp.full((4,), 1 + 2.0 ** -7, jnp.bfloat16)
+    p = _Alg("bf16").mul(a, a)
+    assert p.dtype == jnp.float32
+    np.testing.assert_array_equal(np.asarray(p), 1 + 2.0 ** -6 + 2.0 ** -14)
